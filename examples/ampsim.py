@@ -76,7 +76,7 @@ def stream_amp(dry: np.ndarray, params, layers: int) -> np.ndarray:
     import jax
     import jax.numpy as jnp
 
-    from gpuaudiobench_tpu.ops import neuralamp as na
+    from gpuaudiobench_jax.ops import neuralamp as na
 
     channels = params["w_in"].shape[0]
     cp = na.cast_params(params, "f32")
@@ -98,7 +98,7 @@ def offline_amp(dry: np.ndarray, params, layers: int) -> np.ndarray:
     zero state (offline inference, no streaming)."""
     import jax.numpy as jnp
 
-    from gpuaudiobench_tpu.ops import neuralamp as na
+    from gpuaudiobench_jax.ops import neuralamp as na
 
     channels = params["w_in"].shape[0]
     cp = na.cast_params(params, "f32")
@@ -117,7 +117,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="riff_amp.wav")
     args = ap.parse_args(argv)
 
-    from gpuaudiobench_tpu.ops import neuralamp as na
+    from gpuaudiobench_jax.ops import neuralamp as na
 
     dry = render_riff(args.seconds)
     params = na.init_params(args.seed, args.channels, args.layers)

@@ -1,6 +1,6 @@
 """Scale the bell across a device mesh: mode-sharded modal synthesis.
 
-The single-chip example (examples/streaming_synth.py) streams a
+The single-device example (examples/streaming_synth.py) streams a
 2048-mode bell; this one shards the MODE axis of the same bank over
 every available device (the "tp" axis of the suite's mesh,
 parallel/mesh.py) and psum-reduces each block's partial output across
@@ -11,11 +11,10 @@ user-facing API:
     phasors (a NamedSharding over the mode axis -- XLA moves nothing),
   * per block every device rotates only its own modes and contributes
     a partial (S,) buffer,
-  * one psum over "tp" per block (S floats -- the ICI traffic is the
-    OUTPUT, tiny, not the mode state; see parallel/ici_model.py for
-    the cost model).
+  * one psum over "tp" per block (S floats -- the link traffic is the
+    OUTPUT, tiny, not the mode state).
 
-Runs on anything: real chips, or a virtual CPU mesh --
+Runs on anything: real GPUs, or a virtual CPU mesh --
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/multichip_synth.py --seconds 2 --out bell8.wav
@@ -54,7 +53,7 @@ def main(argv=None) -> int:
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     from examples.streaming_synth import bell_modes
-    from gpuaudiobench_tpu.ops.modal import modal_bank_xla
+    from gpuaudiobench_jax.ops.modal import modal_bank_xla
 
     n_dev = len(jax.devices())
     if args.modes % n_dev:
@@ -65,7 +64,7 @@ def main(argv=None) -> int:
     ones = np.ones_like(amp)
 
     # Shard every per-mode array over "tp"; the carry stays sharded for
-    # the whole render (mode state never crosses ICI).
+    # the whole render (mode state never crosses the links).
     shard = NamedSharding(mesh, P("tp"))
     cos_d = jax.device_put(cos_w, shard)
     sin_d = jax.device_put(sin_w, shard)
@@ -121,16 +120,6 @@ def main(argv=None) -> int:
     print(f"matches single-device render: {ok} "
           f"(max rel err {max_rel:.2e} vs peak)")
 
-    # What the block psum SHOULD cost on real v5e ICI (the suite's
-    # analytic model, parallel/ici_model.py -- serial upper bound):
-    if n_dev > 1:
-        from gpuaudiobench_tpu.parallel.ici_model import collective_ms
-
-        psum_ms = collective_ms("psum", BLOCK * 4, n_dev)
-        print(f"analytic ICI cost of the per-block psum on a {n_dev}-chip "
-              f"v5e ring: {psum_ms * 1e3:.1f} us/block "
-              f"({psum_ms / (BLOCK / FS * 1e3) * 100:.2f}% of the "
-              "real-time budget)")
     return 0 if ok else 1
 
 

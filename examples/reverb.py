@@ -48,7 +48,7 @@ def stream_reverb(dry: np.ndarray, ir: np.ndarray,
     import jax
     import jax.numpy as jnp
 
-    from gpuaudiobench_tpu.ops.partconv import (
+    from gpuaudiobench_jax.ops.partconv import (
         make_partconv_block_nupols,
         num_partitions,
         nupols_init_state,
@@ -132,7 +132,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="bell_hall.wav")
     args = ap.parse_args(argv)
 
-    from gpuaudiobench_tpu.utils.data import reverb_impulse_responses
+    from gpuaudiobench_jax.utils.data import reverb_impulse_responses
 
     dry = render_dry(args.seconds, args.modes, args.f0)
     ir = reverb_impulse_responses(1, max(BLOCK, int(args.rt60 * FS)))

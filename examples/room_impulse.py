@@ -9,9 +9,9 @@ record the receiver cell -- the room impulse response (RIR) that a
 convolution reverb would apply. Echo density and ring-down come out
 of the physics; nothing here is a designed filter.
 
-Pallas kernel on TPU, the XLA program elsewhere -- both carry the
-same (pressure, velocity-divergence / velocity) field state across
-blocks, exactly as the benchmark's streaming mode does.
+The block is the benchmark's own XLA program; it carries the
+(pressure, velocity) field state across blocks, exactly as the
+benchmark's streaming mode does.
 
 Run:  python examples/room_impulse.py [--seconds 1.0] [--out rir.wav]
 """
@@ -42,19 +42,9 @@ def main(argv=None) -> int:
     import jax
     import jax.numpy as jnp
 
-    from gpuaudiobench_tpu.utils import device as dev
+    from gpuaudiobench_jax.ops.fdtd3d import fdtd3d_block, zero_fields
 
-    if dev.resolve_impl("auto") == "pallas":
-        from gpuaudiobench_tpu.ops.fdtd3d_pallas import (
-            fdtd3d_block_pallas_div,
-            zero_fields_div,
-        )
-
-        step_fn, fields = fdtd3d_block_pallas_div, zero_fields_div()
-    else:
-        from gpuaudiobench_tpu.ops.fdtd3d import fdtd3d_block, zero_fields
-
-        step_fn, fields = fdtd3d_block, zero_fields()
+    step_fn, fields = fdtd3d_block, zero_fields()
 
     n_blocks = max(1, int(args.seconds * FS / BLOCK))
     impulse = jnp.zeros((1, BLOCK), jnp.float32).at[0, 0].set(1.0)

@@ -61,8 +61,8 @@ def stream_session(tracks: np.ndarray, stage_coeffs, send, pan2,
     import jax
     import jax.numpy as jnp
 
-    from gpuaudiobench_tpu.models.session import make_session_core
-    from gpuaudiobench_tpu.ops.partconv import num_partitions
+    from gpuaudiobench_jax.models.session import make_session_core
+    from gpuaudiobench_jax.ops.partconv import num_partitions
 
     t, n = tracks.shape
     n_blocks = n // BLOCK
@@ -71,10 +71,10 @@ def stream_session(tracks: np.ndarray, stage_coeffs, send, pan2,
         tracks[:, : n_blocks * BLOCK].reshape(t, n_blocks, BLOCK)
     ).transpose(1, 0, 2)  # (blocks, T, B)
 
-    from gpuaudiobench_tpu.ops.partconv import partition_spectra
+    from gpuaudiobench_jax.ops.partconv import partition_spectra
 
     h_re, h_im = partition_spectra(jnp.asarray(ir), BLOCK)
-    core = make_session_core("xla", len(stage_coeffs))
+    core = make_session_core()
     coeffs = jnp.asarray(np.array(stage_coeffs, np.float32))
     send_d, pan2_d = jnp.asarray(send), jnp.asarray(pan2)
 
@@ -98,7 +98,7 @@ def offline_session(tracks: np.ndarray, stage_coeffs, send, pan2,
                     ir: np.ndarray, wet: float) -> np.ndarray:
     """(2, N) one-shot render of the identical console: f32 sample-loop
     EQ, one f64 FFT convolution of the whole bus, same mix algebra."""
-    from gpuaudiobench_tpu.models.iir import iir_reference
+    from gpuaudiobench_jax.models.iir import iir_reference
 
     t, n = tracks.shape
     y = tracks
@@ -127,11 +127,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chord_mix.wav")
     args = ap.parse_args(argv)
 
-    from gpuaudiobench_tpu.models.session import (
+    from gpuaudiobench_jax.models.session import (
         WET_GAIN,
         session_mix_params,
     )
-    from gpuaudiobench_tpu.utils.data import (
+    from gpuaudiobench_jax.utils.data import (
         biquad_lowpass_coefficients,
         reverb_impulse_responses,
     )

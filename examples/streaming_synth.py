@@ -7,9 +7,10 @@ This is the *user-facing* shape of the suite's flagship workload
 measures this exact per-block step; here it makes sound. Everything
 used below is public API:
 
-  * ops.modal_pallas.modal_folded_step / ops.modal.modal_bank_xla --
-    the chainable one-block step (Pallas on TPU, XLA elsewhere; same
-    carry layout either way: amp-prefolded phasor (re, im)).
+  * ops.modal_triton.modal_step / ops.modal.modal_bank_xla -- the
+    chainable one-block step (the Triton kernel on the GPU, the XLA
+    scan elsewhere; same carry layout either way: amp-prefolded
+    phasor (re, im)).
   * harness.checkpoint.save_stream_state / load_stream_state -- the
     structure-validated .npz persistence the soak harness uses
     (docs/API.md "Streaming state: checkpoint / resume").
@@ -78,34 +79,21 @@ def make_stream(amp, cos_w, sin_w, re0, im0):
     """
     import jax
 
-    from gpuaudiobench_tpu.utils import device as dev
+    from gpuaudiobench_jax.utils import device as dev
 
     carry0 = (amp * re0, amp * im0)
-    if dev.resolve_impl("auto") == "pallas":
-        from gpuaudiobench_tpu.ops import modal_pallas as mp
-
-        tile = mp.stream_tile(amp.shape[0], 1)
-        if tile is None:
-            raise SystemExit("mode count must be a multiple of 128 "
-                             "for the TPU kernel (try --modes 2048)")
-
-        def step(carry):
-            re, im = carry
-            out_s1, re2, im2 = mp.modal_folded_step(
-                cos_w, sin_w, re, im, BLOCK, 1, tile
-            )
-            return (re2, im2), out_s1[:, 0]
+    if dev.platform() == "gpu":
+        from gpuaudiobench_jax.ops.modal_triton import modal_step
     else:
-        from gpuaudiobench_tpu.ops.modal import modal_bank_xla
+        from gpuaudiobench_jax.ops.modal import modal_bank_xla
 
-        ones = np.ones_like(amp)  # amp already folded into the carry
+        def modal_step(cos_w, sin_w, re, im, s, t):
+            return modal_bank_xla(None, cos_w, sin_w, re, im, s, t)
 
-        def step(carry):
-            re, im = carry
-            out_ts, re2, im2 = modal_bank_xla(
-                ones, cos_w, sin_w, re, im, BLOCK, 1
-            )
-            return (re2, im2), out_ts[0]
+    def step(carry):
+        re, im = carry
+        out_ts, re2, im2 = modal_step(cos_w, sin_w, re, im, BLOCK, 1)
+        return (re2, im2), out_ts[0]
 
     import functools
 
@@ -127,7 +115,7 @@ def main(argv=None) -> int:
     ap.add_argument("--f0", type=float, default=220.0)
     args = ap.parse_args(argv)
 
-    from gpuaudiobench_tpu.harness.checkpoint import (
+    from gpuaudiobench_jax.harness.checkpoint import (
         load_stream_state,
         save_stream_state,
     )

@@ -1,4 +1,4 @@
-// Native harness core for tpuaudiobench.
+// Native harness core of the audio benchmark suite.
 //
 // C++ ports of the reference's native harness components (the parts of
 // cuda/bench_utils.cu, cuda/globals.cu and the Metal DAWSimulator that
@@ -18,7 +18,7 @@
 //    (BenchmarkTimer analog, bench_utils.cu:187-220).
 //
 // Build: native/Makefile -> build/libgpuab_native.so; loaded by
-// gpuaudiobench_tpu/utils/native.py (pure-Python fallbacks exist).
+// gpuaudiobench_jax/utils/native.py (pure-Python fallbacks exist).
 
 #include <algorithm>
 #include <chrono>

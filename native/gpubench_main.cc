@@ -1,13 +1,13 @@
-// gpubench: native CLI driver for tpuaudiobench.
+// gpubench: native CLI driver for the audio benchmark suite.
 //
 // The reference's entry point is native (cuda/main.cu); this is its
-// TPU-build equivalent: a C++ executable owning the process surface
+// equivalent here: a C++ executable owning the process surface
 // (argv validation, --help/--list fast paths semantics, exit codes)
-// and driving the compiled TPU programs through the embedded
+// and driving the compiled device programs through the embedded
 // CPython/JAX runtime (the PJRT client lives in the backend plugin;
 // the Python layer is the program registry). Flags are validated here
 // and forwarded verbatim -- the Python side implements the same
-// surface, so `gpubench ...` and `python -m gpuaudiobench_tpu.cli ...`
+// surface, so `gpubench ...` and `python -m gpuaudiobench_jax.cli ...`
 // are interchangeable.
 //
 // Build: native/Makefile -> build/gpubench (links libpython).
@@ -19,13 +19,13 @@
 
 namespace {
 
-// Keep in sync with gpuaudiobench_tpu/cli.py (value_flags + --category /
+// Keep in sync with gpuaudiobench_jax/cli.py (value_flags + --category /
 // --benchmarkFilter); tests/test_native.py diff-checks these tables
 // against the Python surface.
 const char* kValueFlags[] = {
     "--benchmark",    "--fs",               "--bufferSize", "--nTracks",
     "--nRuns",        "--warmup",           "--outputfile", "--verification",
-    "--dawsim-mode",  "--dawsim-jitter-us", "--impl",       "--irLength",
+    "--dawsim-mode",  "--dawsim-jitter-us", "--irLength",
     "--convEdgeMode", "--partconvForm",     "--partconvHDtype",
     "--partconvTailChunk",
     "--neuralampChannels", "--neuralampLayers", "--neuralampDtype",
@@ -38,13 +38,12 @@ const char* kValueFlags[] = {
     "--dwgMinLen",    "--dwgMaxLen",
     "--captureDir",   "--csvSchema",       "--mesh",
     "--solFmaK",      "--solFmaMiB",       "--solStreamMiB",
-    "--solMatmulDim", "--solVmemMiB",
-    "--compilationCacheDir",
+    "--solMatmulDim",
 };
 
 const char* kBoolFlags[] = {
     "--help", "--list", "--json", "--dawsim", "--capture", "--no-device-timing",
-    "--fdtdPerTrackReceivers", "--quiet", "--no-compilationCache",
+    "--fdtdPerTrackReceivers", "--quiet",
     "--modalRenorm", "--noSaturatedMarginal",
 };
 
@@ -65,7 +64,7 @@ bool IsBoolFlag(const char* arg) {
 }  // namespace
 
 int main(int argc, char** argv) {
-  std::printf("TPU Audio Benchmark (native driver)\n");
+  std::printf("Audio Benchmark (native driver)\n");
   std::fflush(stdout);  // keep ordering with the interpreter's stdout
 
   // Native-side flag validation: unknown flags warn (cuda/main.cu:302
@@ -85,11 +84,11 @@ int main(int argc, char** argv) {
   Py_Initialize();
 
   int exit_code = 1;
-  PyObject* mod = PyImport_ImportModule("gpuaudiobench_tpu.cli");
+  PyObject* mod = PyImport_ImportModule("gpuaudiobench_jax.cli");
   if (mod == nullptr) {
     PyErr_Print();
     std::fprintf(stderr,
-                 "gpubench: could not import gpuaudiobench_tpu.cli "
+                 "gpubench: could not import gpuaudiobench_jax.cli "
                  "(is the repo on PYTHONPATH?)\n");
   } else {
     PyObject* fn = PyObject_GetAttrString(mod, "main");

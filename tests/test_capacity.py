@@ -85,7 +85,7 @@ def test_knob_map():
     assert knob_for("gain")[0] == "n_tracks"
     assert knob_for("FDTD3D")[0] == "fdtd_room"  # --fdtdRoom load axis
     with pytest.raises(SystemExit):
-        knob_for("SOL_VPU")
+        knob_for("SOL_FMA_f32")
     with pytest.raises(SystemExit):
         knob_for("datacopy5050")  # no saturated tier to judge by
 
@@ -125,8 +125,7 @@ def test_classify_wall():
     from capacity import classify_wall
 
     assert classify_wall(
-        "INTERNAL: http://x/remote_compile: HTTP 413: Failed to buffer "
-        "the request body: length limit exceeded") == "transport"
+        "INTERNAL: CUDA_ERROR_OUT_OF_MEMORY: out of memory") == "memory"
     assert classify_wall("RESOURCE_EXHAUSTED: alloc") == "memory"
     assert classify_wall("Out of memory allocating 8G") == "memory"
     assert classify_wall("something else entirely") == "error"
@@ -162,9 +161,9 @@ def test_deadline_wall_class(tmp_path, monkeypatch):
 def test_modal_skips_golden_when_verification_none():
     """verification='none' must not pay the host golden (linear in
     modes; the whole point of fast capacity probes)."""
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.harness.runner import run_benchmark
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.harness.runner import run_benchmark
+    from gpuaudiobench_jax.registry import create_benchmark
 
     cfg = BenchConfig(n_runs=1, warmup=1, verification="none",
                       modal_num_modes=1024, write_latencies=False,

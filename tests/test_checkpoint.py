@@ -6,12 +6,12 @@ checkpoints fail loudly."""
 import numpy as np
 import pytest
 
-from gpuaudiobench_tpu.harness.checkpoint import (
+from gpuaudiobench_jax.harness.checkpoint import (
     load_stream_state,
     read_header,
     save_stream_state,
 )
-from gpuaudiobench_tpu.registry import create_benchmark
+from gpuaudiobench_jax.registry import create_benchmark
 
 STATEFUL = ["IIRFilter", "ModalFilterBank", "DWG1DNaive", "RndMemRead"]
 
@@ -110,7 +110,7 @@ def test_lying_header_rejected(tmp_path, small_cfg):
     import jax
 
     n = len(jax.tree_util.tree_leaves(carry))
-    header = {"format": "tpuaudiobench-stream-state-v1",
+    header = {"format": "audiobench-stream-state-v1",
               "benchmark": "IIRFilter", "n_leaves": n, "leaves": []}
     path = str(tmp_path / "lying.npz")
     np.savez(path, header=np.frombuffer(

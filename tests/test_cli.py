@@ -2,15 +2,15 @@
 
 import json
 
-from gpuaudiobench_tpu.cli import parse_args
-from gpuaudiobench_tpu.config import BenchConfig, matches_filter
-from gpuaudiobench_tpu.harness.base import BenchmarkResult
-from gpuaudiobench_tpu.harness.output import (
+from gpuaudiobench_jax.cli import parse_args
+from gpuaudiobench_jax.config import BenchConfig, matches_filter
+from gpuaudiobench_jax.harness.base import BenchmarkResult
+from gpuaudiobench_jax.harness.output import (
     CSV_HEADER,
     generate_json_results,
     write_csv_results,
 )
-from gpuaudiobench_tpu.harness.statistics import calculate_statistics
+from gpuaudiobench_jax.harness.statistics import calculate_statistics
 
 
 def test_defaults():
@@ -30,7 +30,7 @@ def test_flag_parsing():
             "--nTracks", "256", "--nRuns", "50", "--json",
             "--outputfile", "/tmp/x.csv", "--verification", "spot",
             "--dawsim", "--dawsim-mode", "sleep", "--dawsim-jitter-us", "100",
-            "--warmup", "5", "--impl", "xla", "--irLength", "256",
+            "--warmup", "5", "--irLength", "256",
         ]
     )
     assert err is None
@@ -45,7 +45,6 @@ def test_flag_parsing():
     assert cfg.dawsim and cfg.dawsim_mode == "sleep"
     assert cfg.dawsim_jitter_us == 100.0
     assert cfg.warmup == 5
-    assert cfg.impl == "xla"
     assert cfg.ir_length == 256
 
 
@@ -105,7 +104,7 @@ def test_csv_schema(tmp_path):
     write_csv_results(_result([1.0, 2.0, 3.0]), cfg, path)
     write_csv_results(_result([4.0, 5.0, 6.0]), cfg, path)  # append, one header
     lines = open(path).read().strip().split("\n")
-    from gpuaudiobench_tpu.harness.output import CSV_CONTEXT_COLS
+    from gpuaudiobench_jax.harness.output import CSV_CONTEXT_COLS
 
     assert lines[0] == CSV_HEADER + CSV_CONTEXT_COLS
     assert len(lines) == 3
@@ -162,9 +161,9 @@ def test_data_parallel_flag():
 def test_metal_csv_schema(small_cfg, tmp_path):
     """--csvSchema metal writes the Metal harness's column set
     (main.swift:256)."""
-    from gpuaudiobench_tpu.harness.output import write_csv_results
-    from gpuaudiobench_tpu.harness.runner import run_benchmark
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.harness.output import write_csv_results
+    from gpuaudiobench_jax.harness.runner import run_benchmark
+    from gpuaudiobench_jax.registry import create_benchmark
 
     cfg = small_cfg.replace(csv_schema="metal")
     b = create_benchmark("gain", cfg)
@@ -181,7 +180,7 @@ def test_metal_csv_schema(small_cfg, tmp_path):
 
 
 def test_csv_schema_flag_parses():
-    from gpuaudiobench_tpu.cli import parse_args
+    from gpuaudiobench_jax.cli import parse_args
 
     cfg, names, err = parse_args(["--csvSchema", "metal"])
     assert err is None and cfg.csv_schema == "metal"

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpuaudiobench_tpu.parallel import (
+from gpuaudiobench_jax.parallel import (
     make_mesh,
     make_suite_step,
     suite_step_example_args,
 )
-from gpuaudiobench_tpu.parallel.multichip import _biquad_block, _local_conv
+from gpuaudiobench_jax.parallel.multichip import _biquad_block, _local_conv
 
 
 def _sequential_reference(args, tp: int):
@@ -64,9 +64,11 @@ def test_suite_step_output_sharded(mesh8):
 
 
 def test_dryrun_entry():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)
@@ -79,8 +81,8 @@ def test_dryrun_entry():
 def test_data_parallel_benchmarks(name):
     """--dataParallel shards the track axis over the device mesh; the
     jitted programs partition via XLA SPMD and still validate."""
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -98,8 +100,8 @@ def test_data_parallel_benchmarks(name):
 
 
 def test_data_parallel_requires_divisibility():
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
 
     cfg = BenchConfig(buffer_size=64, n_tracks=9, n_runs=1, warmup=0,
                       data_parallel=8, write_latencies=False,
@@ -112,9 +114,9 @@ def test_data_parallel_requires_divisibility():
 def test_fdtd_sharded_matches_single_device(mesh8):
     """Domain-decomposed FDTD (x-axis over the mesh, ppermute halo
     exchange) reproduces the single-device program."""
-    from gpuaudiobench_tpu.ops.fdtd3d import fdtd3d_block, zero_fields
-    from gpuaudiobench_tpu.parallel.fdtd_sharded import make_fdtd_sharded_block
-    from gpuaudiobench_tpu.utils.data import generate_random_audio
+    from gpuaudiobench_jax.ops.fdtd3d import fdtd3d_block, zero_fields
+    from gpuaudiobench_jax.parallel.fdtd_sharded import make_fdtd_sharded_block
+    from gpuaudiobench_jax.utils.data import generate_random_audio
 
     x = generate_random_audio(4 * 16, 42).reshape(4, 16)
     ref, *_ = fdtd3d_block(jnp.asarray(x), *zero_fields())
@@ -140,8 +142,8 @@ def test_data_parallel_full_coverage(name, kw):
     """Round 2: --dataParallel must never silently no-op. Every
     benchmark either shards its parallel axis (tracks / modes /
     waveguides / transfer pool) over the dp mesh, or fails fast."""
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -160,8 +162,8 @@ def test_data_parallel_full_coverage(name, kw):
 
 def test_data_parallel_datacopy_divisibility():
     """Indivisible transfer portions fail fast with a clear error."""
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
 
     cfg = BenchConfig(transfer_mib=1, data_parallel=8, n_runs=1, warmup=0,
                       write_latencies=False, device_timing=False)
@@ -171,8 +173,8 @@ def test_data_parallel_datacopy_divisibility():
 
 
 def test_data_parallel_fdtd_fails_fast():
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
 
     cfg = BenchConfig(
         buffer_size=64, n_tracks=8, n_runs=2, warmup=1,
@@ -186,9 +188,9 @@ def test_data_parallel_fdtd_fails_fast():
 def test_data_parallel_guard_in_runner():
     """A benchmark that never declares a sharded axis cannot run under
     --dataParallel."""
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.harness.base import Benchmark
-    from gpuaudiobench_tpu.harness.runner import run_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.harness.base import Benchmark
+    from gpuaudiobench_jax.harness.runner import run_benchmark
 
     cfg = BenchConfig(n_runs=1, warmup=0, data_parallel=8,
                       write_latencies=False, device_timing=False)
@@ -212,8 +214,8 @@ def test_data_parallel_guard_in_runner():
 def test_multichip_suite_benchmark(mesh):
     """MultiChipSuite as a registered benchmark: the sharded pipeline
     validates against the 1x1x1-mesh reference on every mesh shape."""
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -230,14 +232,14 @@ def test_multichip_suite_benchmark(mesh):
 
 @pytest.mark.parametrize("mesh", ["1,1,1", "2,2,2", "8,1,1"])
 def test_ici_bandwidth_benchmark(mesh):
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     cfg = BenchConfig(n_runs=2, warmup=1, transfer_mib=1,
                       write_latencies=False, device_timing=False, mesh=mesh)
-    b = create_benchmark("ICIBandwidth", cfg)
+    b = create_benchmark("LinkBandwidth", cfg)
     b.setup()
     b.iterate()
     v = b.validate()
@@ -245,18 +247,18 @@ def test_ici_bandwidth_benchmark(mesh):
 
 
 def test_mesh_too_large_fails_fast():
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
 
     cfg = BenchConfig(mesh="64,1,1", n_runs=1, warmup=0,
                       write_latencies=False, device_timing=False)
-    b = create_benchmark("ICIBandwidth", cfg)
+    b = create_benchmark("LinkBandwidth", cfg)
     with pytest.raises(ValueError, match="devices"):
         b.setup()
 
 
 def test_mesh_parse_errors():
-    from gpuaudiobench_tpu.models.multichip_bench import parse_mesh
+    from gpuaudiobench_jax.models.multichip_bench import parse_mesh
 
     assert parse_mesh("2,2,2") == (2, 2, 2)
     with pytest.raises(ValueError):
@@ -266,7 +268,7 @@ def test_mesh_parse_errors():
 
 
 def test_multichip_rejects_unfoldable_modes(small_cfg):
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.registry import create_benchmark
 
     b = create_benchmark(
         "MultiChipSuite", small_cfg.replace(modal_num_modes=1000)
@@ -275,101 +277,23 @@ def test_multichip_rejects_unfoldable_modes(small_cfg):
         b.setup()
 
 
-# --- analytic ICI model (parallel/ici_model.py, VERDICT r2 #7) ----------
-
-
-def test_ici_collective_formulas():
-    from gpuaudiobench_tpu.parallel.ici_model import V5E_ICI, collective_ms
-
-    # Single-axis: free.
-    assert collective_ms("psum", 10**9, 1) == 0.0
-    # ppermute: bandwidth term + one hop of latency.
-    bw = V5E_ICI["link_bytes_per_sec_per_dir"]
-    ms = collective_ms("ppermute", 45_000_000, 4)
-    assert ms == pytest.approx(45e6 / bw * 1e3 + 1e-3)
-    # psum = 2x all_gather at the same volume.
-    ag = collective_ms("all_gather", 10**8, 8)
-    assert collective_ms("psum", 10**8, 8) == pytest.approx(2 * ag)
-    assert collective_ms("reduce_scatter", 10**8, 8) == pytest.approx(ag)
-    # Monotone in bytes; (n-1)/n volume factor grows with n.
-    assert collective_ms("all_gather", 2 * 10**8, 8) > ag
-    assert collective_ms("all_gather", 10**8, 16) > ag
-    with pytest.raises(ValueError):
-        collective_ms("all2all", 1, 2)
-
-
-def test_suite_collective_inventory_scales_with_mesh():
-    """Model SHAPE assertions (the part a CPU mesh can check): halo
-    bytes scale with the IR tail, sp work appears only when sp>1, pp
-    handoffs only when tp>1."""
-    from gpuaudiobench_tpu.parallel.ici_model import suite_collectives
-
-    none = suite_collectives(16, 256, sp=1, tp=1, ir_len=33)
-    assert none == []  # degenerate mesh: no collectives at all
-
-    sp2 = suite_collectives(16, 256, sp=2, tp=1, ir_len=33)
-    assert {c["kind"] for c in sp2} == {"all_gather", "ppermute"}
-    halo = next(c for c in sp2 if "halo" in c["label"])
-    assert halo["bytes"] == 16 * 32 * 4  # (L-1) tail per track
-    halo65 = next(
-        c for c in suite_collectives(16, 256, sp=2, tp=1, ir_len=65)
-        if "halo" in c["label"]
-    )
-    assert halo65["bytes"] == 2 * halo["bytes"]  # scales with IR tail
-
-    tp4 = suite_collectives(16, 256, sp=1, tp=4, ir_len=33)
-    kinds = [c["kind"] for c in tp4]
-    assert "psum" in kinds and "ppermute" in kinds  # cascade handoffs
-    pp = next(c for c in tp4 if "pp handoffs" in c["label"])
-    # 2 microbatches x (tp-1) hops of half the track block each.
-    assert pp["bytes"] == (16 // 2) * 256 * 4 * 2 * 3
-
-
-def test_mesh_benchmarks_attach_ici_model(mesh8):
-    """Metadata carries the prediction exactly when ICI is exercised."""
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
-
-    cfg = BenchConfig(buffer_size=256, n_tracks=16, n_runs=1, warmup=0,
-                      transfer_mib=1, mesh="1,2,2",
-                      write_latencies=False, device_timing=False)
-    b = create_benchmark("MultiChipSuite", cfg)
-    b.setup()
-    md = b.metadata()
-    model = md["ici_model"]
-    assert model["predicted_total_ms"] > 0
-    assert all(c["predicted_ms"] >= 0 for c in model["collectives"])
-    assert "upper bound" in model["assumptions"]
-
-    cfg1 = cfg.replace(mesh="1,1,1")
-    b1 = create_benchmark("MultiChipSuite", cfg1)
-    b1.setup()
-    assert "ici_model" not in b1.metadata()  # single chip: no ICI story
-
-    bi = create_benchmark("ICIBandwidth", cfg.replace(mesh="2,2,1"))
-    bi.setup()
-    mi = bi.metadata()["ici_model"]
-    ring = next(c for c in mi["collectives"] if c["kind"] == "ppermute")
-    assert ring["bytes"] == 1024 * 1024  # --transferMiB 1 chunk
-
-
 @pytest.mark.parametrize("shape", [(1, 2, 2), (1, 1, 2), (1, 4, 1)])
 def test_ici_inventory_matches_compiled_hlo(mesh8, shape):
-    """The analytic model's collective inventory is checked against the
-    collectives XLA ACTUALLY emits: compile the suite step on a virtual
-    mesh and count all-gather / all-reduce / collective-permute ops in
-    the optimized HLO.
+    """The collectives one MultiChipSuite step needs are the ones XLA
+    emits: compile the step on a virtual mesh and count all-gather /
+    all-reduce / collective-permute ops in the optimized HLO.
 
-    Notes from the measured correspondence: XLA also emits DEGENERATE
-    collectives over singleton axes (group size 1, zero ICI cost) that
-    the model rightly omits, and it can fold the pp microbatch hops
-    into fewer static ops than the model's per-hop byte accounting --
-    so non-degenerate axes assert LOWER bounds, and the exact
-    correspondence is pinned for the (1,2,2) mesh where it holds
-    op-for-op (2 AG, 2 AR, 1 halo + n_micro*(tp-1) = 3 CP)."""
-    from gpuaudiobench_tpu.models.multichip_bench import build_mesh
-    from gpuaudiobench_tpu.parallel.ici_model import suite_collectives
-    from gpuaudiobench_tpu.parallel.multichip import (
+    The step's inventory (parallel/multichip.py make_suite_step): over
+    sp, the input and the mixed signal are all-gathered and the FIR halo
+    is one ppermute; over tp, the modal mix and the output are psums and
+    each of the 2 pipeline microbatches crosses tp-1 stage boundaries.
+    XLA also emits degenerate collectives over singleton axes and can
+    fold the microbatch hops into fewer static ops, so non-degenerate
+    axes assert LOWER bounds, and the exact correspondence is pinned for
+    the (1,2,2) mesh where it holds op-for-op (2 AG, 2 AR, 1 halo +
+    (tp-1) = 3 CP)."""
+    from gpuaudiobench_jax.models.multichip_bench import build_mesh
+    from gpuaudiobench_jax.parallel.multichip import (
         make_suite_step,
         suite_step_example_args,
     )
@@ -385,16 +309,12 @@ def test_ici_inventory_matches_compiled_hlo(mesh8, shape):
     counts = {op: hlo.count(f" {op}(") + hlo.count(f" {op}-start(")
               for op in ("all-gather", "all-reduce", "collective-permute")}
 
-    inv = suite_collectives(16 // dp, 256, sp=sp, tp=tp, ir_len=33)
-    want_ag = sum(1 for c in inv if c["kind"] == "all_gather")
-    want_ar = sum(1 for c in inv if c["kind"] == "psum")
-    want_halo = sum(1 for c in inv if c["kind"] == "ppermute"
-                    and "halo" in c["label"])
-    # Lower bounds: every modeled collective must exist in the HLO.
-    assert counts["all-gather"] >= want_ag, (counts, inv)
-    assert counts["all-reduce"] >= want_ar, (counts, inv)
-    want_cp = want_halo + (tp - 1 if tp > 1 else 0)
-    assert counts["collective-permute"] >= want_cp, (counts, inv)
+    want_ag = 2 if sp > 1 else 0
+    want_ar = 2 if tp > 1 else 0
+    want_cp = (1 if sp > 1 else 0) + (tp - 1)
+    assert counts["all-gather"] >= want_ag, counts
+    assert counts["all-reduce"] >= want_ar, counts
+    assert counts["collective-permute"] >= want_cp, counts
     if shape == (1, 2, 2):  # measured exact op-for-op correspondence
         assert counts == {"all-gather": 2, "all-reduce": 2,
                           "collective-permute": 3}, counts
@@ -404,13 +324,13 @@ def test_partconv_partition_sharded_matches_single_device():
     """Partition-sharded streaming convolution (ppermute spectrum
     handoff + psum of partial spectra) reproduces the single-device
     shift-form block across > P streamed blocks."""
-    from gpuaudiobench_tpu.ops.partconv import (
+    from gpuaudiobench_jax.ops.partconv import (
         num_partitions,
         partconv_block,
         partition_spectra,
     )
-    from gpuaudiobench_tpu.parallel.mesh import make_mesh
-    from gpuaudiobench_tpu.parallel.partconv_sharded import (
+    from gpuaudiobench_jax.parallel.mesh import make_mesh
+    from gpuaudiobench_jax.parallel.partconv_sharded import (
         make_partconv_sharded_block,
     )
 
@@ -441,8 +361,8 @@ def test_partconv_partition_sharded_matches_single_device():
 
 
 def test_partconv_sharded_rejects_indivisible_partitions():
-    from gpuaudiobench_tpu.parallel.mesh import make_mesh
-    from gpuaudiobench_tpu.parallel.partconv_sharded import (
+    from gpuaudiobench_jax.parallel.mesh import make_mesh
+    from gpuaudiobench_jax.parallel.partconv_sharded import (
         make_partconv_sharded_block,
     )
 
@@ -451,72 +371,3 @@ def test_partconv_sharded_rejects_indivisible_partitions():
     mesh = make_mesh(8, dp=1, tp=8, sp=1)
     with pytest.raises(ValueError, match="not divisible"):
         make_partconv_sharded_block(mesh, 9, axis="tp")
-
-
-def test_partconv_ici_model_is_partition_independent():
-    """The sharded-PartConv wire cost must not depend on P (the whole
-    point: P-proportional HBM traffic divides by the axis, constant
-    spectrum bytes cross it)."""
-    from gpuaudiobench_tpu.parallel.ici_model import (
-        partconv_collectives,
-        predict,
-    )
-
-    cols = partconv_collectives(tracks=128, bins=513, axis_n=4)
-    assert {c["kind"] for c in cols} == {"ppermute", "psum"}
-    assert all(c["bytes"] == 2 * 128 * 513 * 4 for c in cols)
-    pred = predict(cols)
-    assert 0 < pred["predicted_total_ms"] < 1.0  # well under the deadline
-    assert partconv_collectives(128, 513, 1) == []
-
-
-def test_session_ici_model_is_track_independent():
-    """DAWSessionMix under dp crosses the wire with O(B) bytes (the bus
-    + stereo-mix psum) regardless of track count -- the property that
-    makes the composite session embarrassingly data-parallel."""
-    from gpuaudiobench_tpu.parallel.ici_model import (
-        predict,
-        session_collectives,
-    )
-
-    cols = session_collectives(block=512, axis_n=4)
-    # Two separate sharded-axis contractions in the core (bus send +
-    # stereo pan), each priced as its own all-reduce; 3B floats total,
-    # no track term.
-    assert [c["kind"] for c in cols] == ["psum", "psum"]
-    assert sum(c["bytes"] for c in cols) == 3 * 512 * 4
-    pred = predict(cols)
-    assert 0 < pred["predicted_total_ms"] < 0.1
-    assert session_collectives(512, 1) == []
-
-
-def test_mesh_predictions_doc(tmp_path):
-    """tools/mesh_predict.py (VERDICT r3 next #8): every workload gets
-    a falsifiable predicted-capacity row per mesh size, capacities are
-    monotone in N, and wire budgets never exceed the deadline."""
-    import os
-    import sys
-
-    sys.path.insert(
-        0, os.path.join(os.path.dirname(__file__), "..", "tools"))
-    try:
-        import mesh_predict as mp
-    finally:
-        sys.path.pop(0)
-
-    preds = [mp.predict_modal(), mp.predict_session(), mp.predict_iir(),
-             mp.predict_partconv()]
-    for p in preds:
-        caps = [r["capacity"] for r in p["rows"]]
-        assert caps == sorted(caps) and caps[0] > 0, p["workload"]
-        for r in p["rows"]:
-            assert 0 <= r["wire_ms"] < mp.DEADLINE_MS, p["workload"]
-        # ~linear scaling: 8-chip capacity within 2% of 8x the 1-chip
-        # row for the dp/sp workloads, and at most 8x for all.
-        assert caps[-1] <= 8 * caps[0] * 1.0001, p["workload"]
-
-    out = tmp_path / "mesh.md"
-    assert mp.main([str(out)]) == 0
-    text = out.read_text()
-    assert "predicted capacity @ N chips" in text
-    assert "UPPER bound" in text

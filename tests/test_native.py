@@ -16,17 +16,21 @@ GPUBENCH = os.path.join(NATIVE_DIR, "build", "gpubench")
 
 @pytest.fixture(scope="module", autouse=True)
 def built():
-    if not os.path.exists(LIB) or not os.path.exists(GPUBENCH):
-        r = subprocess.run(
-            ["make", "-C", NATIVE_DIR], capture_output=True, text=True
-        )
-        if r.returncode != 0:
-            pytest.skip(f"native build failed: {r.stderr[-500:]}")
+    # The binaries are built from the committed sources, never committed:
+    # make is incremental, so a stale build is rebuilt too.
+    r = subprocess.run(
+        ["make", "-C", NATIVE_DIR], capture_output=True, text=True
+    )
+    if r.returncode != 0:
+        pytest.skip(f"native build failed: {r.stderr[-500:]}")
+    from gpuaudiobench_jax.utils import native
+
+    native.reset()  # an earlier test may have looked before the build
 
 
 def test_native_stats_matches_python():
-    from gpuaudiobench_tpu.harness.statistics import LatencyStats
-    from gpuaudiobench_tpu.utils import native
+    from gpuaudiobench_jax.harness.statistics import LatencyStats
+    from gpuaudiobench_jax.utils import native
 
     assert native.available()
     rng = np.random.default_rng(7)
@@ -55,7 +59,7 @@ def test_native_stats_matches_python():
 
 
 def test_native_dawsim_paces():
-    from gpuaudiobench_tpu.utils.native import NativeDAWSimulator
+    from gpuaudiobench_jax.utils.native import NativeDAWSimulator
 
     sim = NativeDAWSimulator(480, 48000, "sleep")  # 10 ms buffers
     sim.wait()  # arms the schedule
@@ -67,7 +71,7 @@ def test_native_dawsim_paces():
 
 
 def test_native_dawsim_spin_precision():
-    from gpuaudiobench_tpu.utils.native import NativeDAWSimulator
+    from gpuaudiobench_jax.utils.native import NativeDAWSimulator
 
     sim = NativeDAWSimulator(48, 48000, "spin")  # 1 ms buffers
     # On a loaded machine the process can be preempted past the buffer
@@ -115,7 +119,7 @@ def test_native_flag_tables_match_cli():
     import re
     from pathlib import Path
 
-    from gpuaudiobench_tpu import cli
+    from gpuaudiobench_jax import cli
 
     src = Path(__file__).resolve().parents[1] / "native" / "gpubench_main.cc"
     text = src.read_text()

@@ -4,9 +4,9 @@ double-buffered host->HBM upload against device compute -- SURVEY
 
 import pytest
 
-from gpuaudiobench_tpu.harness.output import generate_json_results
-from gpuaudiobench_tpu.harness.runner import run_benchmark
-from gpuaudiobench_tpu.registry import create_benchmark
+from gpuaudiobench_jax.harness.output import generate_json_results
+from gpuaudiobench_jax.harness.runner import run_benchmark
+from gpuaudiobench_jax.registry import create_benchmark
 
 
 @pytest.mark.parametrize("name", [
@@ -76,24 +76,6 @@ def test_datacopy_records_transfer_memory_class(small_cfg):
         (b._pinned_input is not None)
     v = b.validate()
     assert v.passed
-
-
-def test_projection_carries_overlapped_bound():
-    from gpuaudiobench_tpu.utils.projection import projected_colocated
-
-    p = projected_colocated(1.0, 10_940_000, 10_940_000)
-    # transfers = 2 ms total at 10.94 GB/s; serial = launch + 2 + 1,
-    # overlapped = launch + max(2, 1).
-    assert p["transfer_ms"] == pytest.approx(2.0, rel=1e-3)
-    assert p["projected_colocated_ms"] == pytest.approx(
-        p["launch_ms"] + 3.0, rel=1e-3)
-    assert p["projected_overlapped_ms"] == pytest.approx(
-        p["launch_ms"] + 2.0, rel=1e-3)
-    assert p["transfer_model"] == "serial (upper bound)"
-    # Compute-dominated block: overlap hides the transfer entirely.
-    p = projected_colocated(5.0, 1_094_000, 1_094_000)
-    assert p["projected_overlapped_ms"] == pytest.approx(
-        p["launch_ms"] + 5.0, rel=1e-3)
 
 
 def test_overlap_skipped_under_data_parallel(small_cfg):

@@ -9,13 +9,13 @@ runner/streaming integration.
 import numpy as np
 import pytest
 
-from gpuaudiobench_tpu.config import BenchConfig
-from gpuaudiobench_tpu.models.partconv import (
+from gpuaudiobench_jax.config import BenchConfig
+from gpuaudiobench_jax.models.partconv import (
     PartConvBenchmark,
     partconv_reference,
 )
-from gpuaudiobench_tpu.ops.partconv import num_partitions
-from gpuaudiobench_tpu.utils.data import reverb_impulse_responses
+from gpuaudiobench_jax.ops.partconv import num_partitions
+from gpuaudiobench_jax.utils.data import reverb_impulse_responses
 
 
 def brute_force_block(x: np.ndarray, ir: np.ndarray, k: int) -> np.ndarray:
@@ -85,8 +85,8 @@ def test_steady_state_is_periodic():
 
 
 def test_runner_end_to_end_with_streaming():
-    from gpuaudiobench_tpu.harness.runner import run_benchmark
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.harness.runner import run_benchmark
+    from gpuaudiobench_jax.registry import create_benchmark
 
     cfg = BenchConfig(n_runs=2, warmup=1, n_tracks=4, buffer_size=64,
                       ir_length=256, pipeline_depth=4, saturated_reps=3,
@@ -105,7 +105,7 @@ def test_ring_equals_shift_form():
     the same filter: identical outputs over > P blocks."""
     import jax.numpy as jnp
 
-    from gpuaudiobench_tpu.ops.partconv import (
+    from gpuaudiobench_jax.ops.partconv import (
         partconv_block,
         partconv_block_ring,
         partition_spectra,
@@ -140,7 +140,7 @@ def test_ring_equals_shift_form():
 def test_verification_none_skips_golden(monkeypatch):
     """verification='none' must not pay the fold-algebra golden
     (capacity probes search large track counts)."""
-    import gpuaudiobench_tpu.models.partconv as pc
+    import gpuaudiobench_jax.models.partconv as pc
 
     def boom(*a, **k):
         raise AssertionError("golden computed despite verification=none")
@@ -166,7 +166,7 @@ def test_f16_spectra_validate_at_full_partition_depth():
     """--partconvHDtype f16 must stay inside the 1e-3 contract at the
     REAL accumulation depth (94 partitions of the 1 s default IR) --
     the measured margin is ~5x (1.9e-4); bf16 was measured at 1.59e-3
-    and rejected (docs/BENCHMARKS.md)."""
+    and rejected."""
     b = _bench(n_tracks=2, buffer_size=512, ir_length=48000,
                partconv_h_dtype="f16")
     assert b.partitions == 94
@@ -192,7 +192,7 @@ def test_invalid_form_rejected():
 
 
 def test_registered_as_dsp_extension():
-    from gpuaudiobench_tpu.registry import (
+    from gpuaudiobench_jax.registry import (
         BENCHMARK_DESCRIPTIONS,
         CATEGORIES,
         EXTENSION_NAMES,
@@ -224,7 +224,7 @@ def test_reverb_ir_properties():
 
 
 def test_nupols_tail_partition_math():
-    from gpuaudiobench_tpu.ops.partconv import nupols_tail_partitions
+    from gpuaudiobench_jax.ops.partconv import nupols_tail_partitions
 
     assert nupols_tail_partitions(256, 8, 4) == 7  # head 32, tail 224/32
     assert nupols_tail_partitions(33, 8, 4) == 1   # one tap past the head
@@ -238,7 +238,7 @@ def test_nupols_equals_shift_form():
     full tail windows, on a RANDOM (non-repeated) input stream."""
     import jax.numpy as jnp
 
-    from gpuaudiobench_tpu.ops.partconv import (
+    from gpuaudiobench_jax.ops.partconv import (
         make_partconv_block_nupols,
         nupols_init_state,
         nupols_spectra,
@@ -264,7 +264,7 @@ def test_nupols_equals_shift_form():
     (hh_re, hh_im), (ht_re, ht_im) = nupols_spectra(jnp.asarray(ir), b, k)
     assert hh_re.shape == (t, k, b + 1)
     # tail H is padded to 1 + K*L entries (static spread-MAC windows)
-    from gpuaudiobench_tpu.ops.partconv import nupols_group_len
+    from gpuaudiobench_jax.ops.partconv import nupols_group_len
 
     ell = nupols_group_len(m, k)
     assert ht_re.shape == (t, 1 + k * ell, k * b + 1)
@@ -288,8 +288,8 @@ def test_nupols_equals_shift_form():
 def test_nupols_runner_integration(small_cfg):
     """nupols through the registry/runner: the fold-algebra golden
     validates it unchanged across window boundaries."""
-    from gpuaudiobench_tpu.harness.runner import run_benchmark
-    from gpuaudiobench_tpu.registry import create_benchmark
+    from gpuaudiobench_jax.harness.runner import run_benchmark
+    from gpuaudiobench_jax.registry import create_benchmark
 
     cfg = small_cfg.replace(
         n_tracks=2, buffer_size=32, ir_length=600, n_runs=10,
@@ -317,7 +317,7 @@ def test_nupols_headonly_falls_back_to_shift():
 
 
 def test_nupols_config_validation():
-    from gpuaudiobench_tpu.config import BenchConfig
+    from gpuaudiobench_jax.config import BenchConfig
 
     with pytest.raises(ValueError, match="partconv_tail_chunk"):
         BenchConfig(partconv_tail_chunk=1).validate()
@@ -328,7 +328,7 @@ def test_nupols_config_validation():
 def test_nupols_phase_windows_cover_every_slot():
     """The spread-MAC phase windows [1 + g*L, 1 + (g+1)*L) must cover
     slots 1..M-1, with everything past M hitting zero-padded H."""
-    from gpuaudiobench_tpu.ops.partconv import nupols_group_len
+    from gpuaudiobench_jax.ops.partconv import nupols_group_len
 
     for m in (1, 2, 5, 11, 16, 33, 58):
         for k in (2, 4, 8, 16):

@@ -1,5 +1,4 @@
-"""Round-5 tooling: capacity brackets, batched-upload overlap,
-quiet-window probe, tab5/tab6 renderers, README headline generator."""
+"""Capacity-ledger tooling: brackets from search + confirmation runs."""
 
 import importlib.util
 import json
@@ -102,83 +101,3 @@ def test_ledger_renders_bracket_in_table():
     md = cap_mod.render_md([rec])
     assert "786432 (edge 917504)" in md
     assert "confirm n=101" in md
-
-
-# ---- measure_overlap_batched ----------------------------------------
-
-def test_overlap_batched_runs_and_validates_contract():
-    import jax.numpy as jnp
-    import numpy as np
-
-    from gpuaudiobench_tpu.harness.overlap import (
-        measure_overlap,
-        measure_overlap_batched,
-    )
-
-    def step(x, c):
-        return x * 2.0, c
-
-    a = np.random.default_rng(0).standard_normal((8, 16)).astype(np.float32)
-    blocks = [a, -a]
-    vals = measure_overlap_batched(step, blocks, (), depth=8, batch=4,
-                                   reps=2)
-    assert len(vals) == 2 and all(v > 0 for v in vals)
-    with pytest.raises(ValueError):
-        measure_overlap_batched(step, blocks, (), depth=6, batch=4)
-    with pytest.raises(ValueError):
-        measure_overlap_batched(step, [a], (), depth=8, batch=4)
-    with pytest.raises(ValueError):
-        measure_overlap(step, [a], (), depth=4)
-    del jnp
-
-
-# ---- quiet probe ----------------------------------------------------
-
-def test_quiet_probe_cv_measures():
-    qp = _load_tool("quiet_probe")
-    cv = qp.probe_cv(n_runs=4)
-    assert cv >= 0.0
-
-
-# ---- tab5 / tab6 renderers ------------------------------------------
-
-def test_tab5_render_handles_rows_and_errors():
-    t5 = _load_tool("transfer_tab5")
-    payload = {
-        "n_runs": 3, "overlap_depth": 8,
-        "rows": [
-            {"benchmark": "datacopy0199", "mib": 100,
-             "tpu_serial_ms": 12.0, "tpu_overlapped_ms": 3.0,
-             "projected_colocated_ms": 9.5, "h2d_path": "pinned",
-             "pc_ms": 10.06, "as_ms": 9.14, "as_unified_ms": 0.15},
-            {"benchmark": "datacopy5050", "mib": 100,
-             "error": "RuntimeError: boom"},
-        ],
-        "gib_rows": [{"benchmark": "datacopy5050", "mib": 1024,
-                      "roundtrip_p50_ms": 400.0,
-                      "h2d_pinned_ms": 150.0}],
-    }
-    md = t5.render_md(payload)
-    assert "datacopy0199" in md and "ERROR" in md
-    assert "1 GiB tier" in md
-
-
-def test_rndmem_sweep_covers_all_published_sizes():
-    rs = _load_tool("rndmem_sweep")
-    assert [p[0] for p in rs.POINTS] == [32, 128, 1024, 4096, 16384,
-                                         65536]
-
-
-# ---- README headline generator --------------------------------------
-
-def test_readme_headline_generates_from_artifacts():
-    rh = _load_tool("readme_headline")
-    block = rh.generate()
-    assert block.startswith(rh.BEGIN) and block.endswith(rh.END)
-    # The bench artifact exists in the repo, so the modal sentence
-    # must be present and carry a vs-baseline multiple.
-    assert "faster" in block
-    # The overlap claim must carry the co-located qualifier (ADVICE
-    # r4 low #2) whenever an overlap artifact is cited.
-    if "overlapDepth" in block:
-        assert "UPPER-BOUNDS" in block or "upper-bounds" in block.lower()

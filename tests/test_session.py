@@ -4,22 +4,22 @@ send bus -> stereo mixdown) and its full-replay golden.
 The golden (models/session.py session_reference) is first proven
 against a by-definition brute force (np.convolve reverb on the
 explicitly simulated bus stream); the device path is then validated
-against the golden across iterations, impls, replay-clamp boundaries,
+against the golden across iterations, replay-clamp boundaries,
 streaming, and dp sharding.
 """
 
 import numpy as np
 import pytest
 
-from gpuaudiobench_tpu.config import BenchConfig
-from gpuaudiobench_tpu.models.iir import iir_reference
-from gpuaudiobench_tpu.models.session import (
+from gpuaudiobench_jax.config import BenchConfig
+from gpuaudiobench_jax.models.iir import iir_reference
+from gpuaudiobench_jax.models.session import (
     WET_GAIN,
     DAWSessionMixBenchmark,
     session_mix_params,
     session_reference,
 )
-from gpuaudiobench_tpu.utils.data import (
+from gpuaudiobench_jax.utils.data import (
     biquad_lowpass_coefficients,
     reverb_impulse_responses,
 )
@@ -87,19 +87,12 @@ def _bench(**over):
     return b
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla"])
 def test_device_matches_golden_over_iterations(impl):
-    import contextlib
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    ctx = (pltpu.force_tpu_interpret_mode() if impl == "pallas"
-           else contextlib.nullcontext())
-    with ctx:
-        b = _bench(n_tracks=8, buffer_size=64, ir_length=300, impl=impl)
-        for _ in range(5):  # + setup's iterate = 6 blocks, past P = 5
-            b.iterate()
-        v = b.validate()
+    b = _bench(n_tracks=8, buffer_size=64, ir_length=300)
+    for _ in range(5):  # + setup's iterate = 6 blocks, past P = 5
+        b.iterate()
+    v = b.validate()
     assert v.passed, v.messages
     assert v.max_error < 1e-5  # far inside the 1e-3 contract
 
@@ -112,8 +105,6 @@ def test_output_shape_and_metadata():
     assert md["eqStages"] == 6
     assert md["partitions"] == 5
     assert b.cost_model()["flops"] > 0
-    tm = b.transfer_model()
-    assert tm["d2h_bytes"] == 2 * 64 * 4
 
 
 def test_streaming_matches_iterate_evolution():
@@ -159,12 +150,12 @@ def test_config_bounds():
 
 
 def test_registered_and_ui_schema():
-    from gpuaudiobench_tpu.registry import (
+    from gpuaudiobench_jax.registry import (
         CATEGORIES,
         BENCHMARK_DESCRIPTIONS,
         list_benchmarks,
     )
-    from gpuaudiobench_tpu.webui.params import apply_params, benchmark_params
+    from gpuaudiobench_jax.webui.params import apply_params, benchmark_params
 
     assert "DAWSessionMix" in list_benchmarks()
     assert "DAWSessionMix" in CATEGORIES["session"]
@@ -176,11 +167,13 @@ def test_registered_and_ui_schema():
     assert cfg.session_eq_stages == 8
 
 
-def test_dp_metadata_carries_ici_prediction():
+def test_dp_session_matches_golden():
+    """Under --dataParallel the bus sum becomes a psum across the mesh;
+    the stream still matches the golden block for block."""
     bdp = _bench(n_tracks=8, buffer_size=64, ir_length=300,
                  data_parallel=4)
-    md = bdp.metadata()
-    assert "ici_model" in md
-    assert md["ici_model"]["predicted_total_ms"] > 0
-    assert "ici_model" not in _bench(
-        n_tracks=8, buffer_size=64, ir_length=300).metadata()
+    for _ in range(2):
+        bdp.iterate()
+    v = bdp.validate()
+    assert v.passed, v.messages
+    assert "ici_model" not in bdp.metadata()

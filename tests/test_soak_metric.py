@@ -1,7 +1,7 @@
 """tools/soak.py stream_state_rms: the evolving-leaves-only state
 metric.
 
-Since the remote-compile-413 fix, stream bodies carry large CONSTANT
+Stream bodies carry large CONSTANT
 operands (input blocks, sample pools, IR spectra) alongside the real
 state; the soak's drift detector must exclude them or a (T, S) input
 block dilutes a (T, 2) biquad state's drift ~100x below visibility.

@@ -1,78 +1,31 @@
-"""speedoflight category: the measured-peak microbenchmarks
-(models/speedoflight.py, ops/speedoflight.py) and the calibrated
-roofline plumbing (utils/roofline.py resolve_peaks)."""
-
-import json
+"""speedoflight category: the microbenchmarks that say what the card
+reaches beside its published peaks (models/speedoflight.py,
+ops/speedoflight.py)."""
 
 import numpy as np
 import pytest
 
-from gpuaudiobench_tpu.harness.runner import run_benchmark
-from gpuaudiobench_tpu.registry import CATEGORIES, create_benchmark
+from gpuaudiobench_jax.harness.runner import run_benchmark
+from gpuaudiobench_jax.registry import CATEGORIES, create_benchmark
 
-SOL_NAMES = ["SOL_VPU", "SOL_VMEM", "SOL_HBM",
-             "SOL_MXU_bf16", "SOL_MXU_f32", "SOL_MXU_int8"]
+SOL_NAMES = ["SOL_FMA_f32", "SOL_HBM", "SOL_MMA_bf16", "SOL_MMA_tf32",
+             "SOL_MMA_int8"]
 
 
 def test_speedoflight_category_registered():
     assert CATEGORIES["speedoflight"] == SOL_NAMES
 
 
-def test_fma_chain_closed_form(rng):
+@pytest.mark.parametrize("k", [16, 64, 600])
+def test_fma_chain_closed_form(rng, k):
     """The FMA chain must match its closed form exactly enough that the
-    benchmark's validation is a real check (k f32 roundings)."""
-    from gpuaudiobench_tpu.ops.speedoflight import fma_chain_xla, fma_golden
+    benchmark's validation is a real check (k f32 roundings), both
+    fully unrolled and through the fori_loop past _FULL_UNROLL."""
+    from gpuaudiobench_jax.ops.speedoflight import fma_chain, fma_golden
 
     x = (rng.random((16, 1024), dtype=np.float32) * 2 - 1).astype(np.float32)
-    y = np.asarray(fma_chain_xla(x, 64))
-    np.testing.assert_allclose(y, fma_golden(x, 64), atol=1e-4)
-
-
-def test_fma_pallas_matches_xla(rng):
-    from jax.experimental.pallas import tpu as pltpu
-
-    from gpuaudiobench_tpu.ops.speedoflight import (
-        fma_chain_pallas,
-        fma_chain_xla,
-    )
-
-    x = (rng.random((512, 1024), dtype=np.float32) * 2 - 1).astype(np.float32)
-    ref = np.asarray(fma_chain_xla(x, 24))
-    with pltpu.force_tpu_interpret_mode():
-        out = np.asarray(fma_chain_pallas(x, 24))
-    np.testing.assert_allclose(out, ref, atol=1e-6)
-
-
-def test_fma_vmem_pallas_matches_xla(rng):
-    """The VMEM-carried chain computes the exact same per-pass math as
-    the register-resident one; only the carry's residence differs."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from gpuaudiobench_tpu.ops.speedoflight import (
-        fma_chain_xla,
-        fma_vmem_pallas,
-    )
-
-    x = (rng.random((64, 1024), dtype=np.float32) * 2 - 1).astype(np.float32)
-    ref = np.asarray(fma_chain_xla(x, 24))
-    with pltpu.force_tpu_interpret_mode():
-        out = np.asarray(fma_vmem_pallas(x, 24))
-    np.testing.assert_allclose(out, ref, atol=1e-6)
-
-
-def test_sol_vmem_declares_vmem_traffic(small_cfg):
-    """SOL_VMEM's cost model must carry the vmem_bytes the calibration
-    divides by (8 B/element/pass), and the roofline must surface it."""
-    from gpuaudiobench_tpu.utils.roofline import roofline_metrics
-
-    bench = create_benchmark("SOL_VMEM", small_cfg)
-    bench.setup()
-    cost = bench.cost_model()
-    n = bench.host_input.size
-    assert cost["vmem_bytes"] == bench.k * 8 * n
-    rm = roofline_metrics(cost, device_ms=1.0)
-    assert rm["vmem_pct_of_peak"] > 0
-    assert "achieved_vmem_gbps" in rm
+    y = np.asarray(fma_chain(x, k))
+    np.testing.assert_allclose(y, fma_golden(x, k), atol=5e-4)
 
 
 @pytest.mark.parametrize("name", SOL_NAMES)
@@ -83,137 +36,87 @@ def test_sol_benchmark_validates(small_cfg, name):
     assert result.validation.passed, result.validation.messages[:3]
     cost = bench.cost_model()
     assert cost["flops"] > 0 and cost["hbm_bytes"] > 0
-    assert "measurement IS the" in cost["note"]
+
+
+@pytest.mark.parametrize("name,unit", [
+    ("SOL_FMA_f32", "fp32"), ("SOL_HBM", "fp32"), ("SOL_MMA_bf16", "bf16"),
+    ("SOL_MMA_tf32", "tf32"), ("SOL_MMA_int8", "int8"),
+])
+def test_sol_units_name_the_card_unit(small_cfg, name, unit):
+    """Each microbenchmark is judged against the peak of the unit it
+    exercises."""
+    bench = create_benchmark(name, small_cfg)
+    bench.setup()
+    assert bench.cost_model()["unit"] == unit
 
 
 def test_sol_rejects_data_parallel(small_cfg):
     cfg = small_cfg.replace(data_parallel=2)
-    bench = create_benchmark("SOL_VPU", cfg)
-    with pytest.raises(ValueError, match="single-chip"):
+    bench = create_benchmark("SOL_FMA_f32", cfg)
+    with pytest.raises(ValueError, match="single-device"):
         bench.setup()
 
 
-def test_matmul_f32_uses_highest_precision(small_cfg):
-    """The delivered-f32 rate must be measured at HIGHEST precision --
-    a default-precision (single bf16 pass) matmul would inflate the f32
-    'peak' while delivering ~1e-2 accuracy. Validation tolerance 1e-3
-    against the f32 BLAS golden is the enforcement: a bf16 single-pass
-    result fails it on a 128-term dot."""
-    bench = create_benchmark("SOL_MXU_f32", small_cfg)
+def test_matmul_tf32_tolerance_catches_bf16(rng):
+    """The TF32 check (4 * 2^-10 of the largest output) passes a
+    TF32-class result and fails one whose operands were rounded to bf16
+    (8-bit mantissa), the error a wrong precision would make."""
+    import jax.numpy as jnp
+
+    d = 256
+    a = rng.standard_normal((d, d)).astype(np.float32)
+    b = rng.standard_normal((d, d)).astype(np.float32)
+    golden = a.astype(np.float64) @ b.astype(np.float64)
+    peak = np.abs(golden).max()
+
+    def rounded(x, bits):
+        m, e = np.frexp(x)
+        return np.ldexp(np.round(m * 2.0 ** bits) / 2.0 ** bits, e)
+
+    tol = 4 * 2.0 ** -10
+    tf32 = rounded(a, 11) @ rounded(b, 11)
+    bf16 = np.asarray(jnp.asarray(a, jnp.bfloat16), np.float64) @ np.asarray(
+        jnp.asarray(b, jnp.bfloat16), np.float64)
+    assert np.abs(tf32 - golden).max() / peak < tol
+    assert np.abs(bf16 - golden).max() / peak > tol / 4
+
+
+def test_matmul_bf16_tolerance_catches_a_bf16_output(rng):
+    """The bf16 check (2^-16 of the largest output, against a float64
+    golden) passes f32 accumulation of the exact bf16 products in
+    tensor-core-sized chunks and fails an output rounded to bf16."""
+    import jax.numpy as jnp
+
+    d = 512
+    a = np.asarray(jnp.asarray(rng.uniform(-1, 1, (d, d)), jnp.bfloat16),
+                   np.float64)
+    b = np.asarray(jnp.asarray(rng.uniform(-1, 1, (d, d)), jnp.bfloat16),
+                   np.float64)
+    golden = a @ b
+    peak = np.abs(golden).max()
+    acc = np.zeros((d, d), np.float32)
+    for k in range(0, d, 16):
+        acc += (a[:, k:k + 16] @ b[k:k + 16]).astype(np.float32)
+    rounded = np.asarray(jnp.asarray(golden.astype(np.float32),
+                                     jnp.bfloat16), np.float64)
+    tol = 2.0 ** -16
+    assert np.abs(acc - golden).max() / peak < tol / 10
+    assert np.abs(rounded - golden).max() / peak > 10 * tol
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_matmul_golden_is_float64(small_cfg, dtype):
+    bench = create_benchmark(f"SOL_MMA_{dtype}", small_cfg)
     bench.setup()
-    v = bench.validate()
-    assert v.passed
-    assert v.max_error < 1e-4  # true f32 accumulation, not bf16
+    assert bench.golden.dtype == np.float64
+    assert bench.validate().passed
 
 
-# --- calibrated-peak plumbing -------------------------------------------
-
-
-def test_resolve_peaks_spec_fallback(tmp_path):
-    from gpuaudiobench_tpu.utils.roofline import SPEC_PEAK, resolve_peaks
-
-    peaks, source = resolve_peaks("TPU v99", str(tmp_path / "absent.json"))
-    assert peaks == SPEC_PEAK
-    assert source == "spec-estimate"
-
-
-def _write_peaks(path, kind, vpu=5e12):
-    path.write_text(json.dumps({
-        "device_kind": kind,
-        "measured_at": "2026-08-17",
-        "peaks": {"vpu_f32_flops": vpu},
-    }))
-
-
-def test_resolve_peaks_measured_overrides(tmp_path):
-    from gpuaudiobench_tpu.utils.roofline import SPEC_PEAK, resolve_peaks
-
-    p = tmp_path / "peaks.json"
-    _write_peaks(p, "TPU v5 lite")
-    peaks, source = resolve_peaks("TPU v5 lite", str(p))
-    assert peaks["vpu_f32_flops"] == 5e12  # measured wins
-    assert peaks["hbm_bytes_per_sec"] == SPEC_PEAK["hbm_bytes_per_sec"]
-    assert source.startswith("measured(TPU v5 lite")
-
-    # A different device kind falls back to spec.
-    peaks, source = resolve_peaks("TPU v6e", str(p))
-    assert peaks == SPEC_PEAK and source == "spec-estimate"
-
-
-def test_roofline_metrics_carries_peak_source(monkeypatch, tmp_path):
-    from gpuaudiobench_tpu.utils import roofline
-
-    p = tmp_path / "peaks.json"
-    _write_peaks(p, "TPU v5 lite", vpu=2e12)
-    monkeypatch.setattr(roofline, "MEASURED_PEAKS_PATH", str(p))
-    roofline._load_measured.cache_clear()
-    try:
-        cost = {"flops": 2e9, "hbm_bytes": 1e6, "unit": "vpu"}
-        rl = roofline.roofline_metrics(cost, 1.0, device_kind="TPU v5 lite")
-        # 2 TFLOP/s achieved against the 2 TFLOP/s measured peak = 100%.
-        assert rl["flops_pct_of_peak"] == pytest.approx(100.0)
-        assert rl["peak_source"].startswith("measured")
-    finally:
-        roofline._load_measured.cache_clear()
-
-
-def test_calibrate_targets_cover_all_peak_keys():
-    """Every roofline denominator has a microbenchmark that measures it
-    (no peak the suite divides by is left uncalibratable)."""
-    import importlib.util
-    import os
-
-    spec = importlib.util.spec_from_file_location(
-        "calibrate_peaks",
-        os.path.join(os.path.dirname(__file__), "..", "tools",
-                     "calibrate_peaks.py"),
-    )
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    from gpuaudiobench_tpu.utils.roofline import SPEC_PEAK
-
-    assert {k for k, _ in mod.TARGETS.values()} == set(SPEC_PEAK)
-
-
-def test_partial_calibration_discloses_spec_fallback(tmp_path):
-    """A peaks file missing a key (e.g. written before SOL_VMEM
-    existed) must name the keys that fall back to spec in the
-    peak_source string instead of claiming them measured."""
-    from gpuaudiobench_tpu.utils.roofline import SPEC_PEAK, resolve_peaks
-
-    path = str(tmp_path / "peaks.json")
-    with open(path, "w") as f:
-        json.dump({"device_kind": "TPU vX",
-                   "peaks": {"vpu_f32_flops": 5e12}}, f)
-    peaks, source = resolve_peaks("TPU vX", path=path)
-    assert peaks["vpu_f32_flops"] == 5e12
-    assert peaks["vmem_bytes_per_sec"] == SPEC_PEAK["vmem_bytes_per_sec"]
-    assert source.startswith("measured(TPU vX")
-    assert "+spec:" in source and "vmem_bytes_per_sec" in source
-    # a complete calibration carries no fallback suffix
-    with open(path, "w") as f:
-        json.dump({"device_kind": "TPU vX",
-                   "peaks": {k: 1e12 for k in SPEC_PEAK}}, f)
-    from gpuaudiobench_tpu.utils.roofline import _load_measured
-
-    _load_measured.cache_clear()
-    _, source = resolve_peaks("TPU vX", path=path)
-    assert "+spec:" not in source
-
-
-def test_calibrate_refuses_vmem_from_xla_fallback(small_cfg):
-    """On a non-Pallas backend SOL_VMEM computes the right VALUES but
-    its rate is an FMA rate, not a VMEM rate; calibration must refuse
-    to persist it (the CLI run skips-and-discloses instead)."""
-    import importlib.util
-    import os
-
-    spec = importlib.util.spec_from_file_location(
-        "calibrate_peaks",
-        os.path.join(os.path.dirname(__file__), "..", "tools",
-                     "calibrate_peaks.py"),
-    )
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    with pytest.raises(RuntimeError, match="XLA fallback"):
-        mod.measure(small_cfg, "SOL_VMEM")
+def test_int8_golden_is_exact_through_float64(small_cfg):
+    """The int8 golden runs through float64 BLAS (an int64 matmul takes
+    minutes at the default size); every value is an integer below 2^53,
+    so it equals the integer product."""
+    bench = create_benchmark("SOL_MMA_int8", small_cfg)
+    bench.setup()
+    exact = bench.host_a.astype(np.int64) @ bench.host_b.astype(np.int64)
+    np.testing.assert_array_equal(bench.golden, exact.astype(np.float64))

@@ -5,7 +5,7 @@ import math
 import numpy as np
 import pytest
 
-from gpuaudiobench_tpu.harness.statistics import (
+from gpuaudiobench_jax.harness.statistics import (
     calculate_statistics,
     csv_percentile,
     interpolated_percentile,
@@ -69,7 +69,7 @@ def test_percentiles_ordering():
 
 
 def test_histogram():
-    from gpuaudiobench_tpu.harness.statistics import histogram
+    from gpuaudiobench_jax.harness.statistics import histogram
 
     counts, edges = histogram([1.0, 1.0, 2.0, 3.0], bins=4)
     assert sum(counts) == 4
@@ -79,7 +79,7 @@ def test_histogram():
 
 
 def test_detect_outliers():
-    from gpuaudiobench_tpu.harness.statistics import detect_outliers
+    from gpuaudiobench_jax.harness.statistics import detect_outliers
 
     vals = [1.0] * 20 + [100.0]
     out, lo, hi = detect_outliers(vals)
@@ -88,7 +88,7 @@ def test_detect_outliers():
 
 
 def test_stability_rating():
-    from gpuaudiobench_tpu.harness.statistics import stability_rating
+    from gpuaudiobench_jax.harness.statistics import stability_rating
 
     cv, rating = stability_rating([1.0, 1.01, 0.99, 1.0])
     assert rating == "excellent"
@@ -97,7 +97,7 @@ def test_stability_rating():
 
 
 def test_compare_runs():
-    from gpuaudiobench_tpu.harness.statistics import compare_runs
+    from gpuaudiobench_jax.harness.statistics import compare_runs
 
     assert compare_runs([2.0, 2.0], [1.0, 1.0]) == pytest.approx(50.0)
     assert compare_runs([1.0], [2.0]) == pytest.approx(-100.0)
@@ -109,10 +109,10 @@ def test_csv_schema_mismatch_refused(tmp_path):
     metal-schema run into a cuda-schema file)."""
     import pytest
 
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.harness.base import BenchmarkResult
-    from gpuaudiobench_tpu.harness.output import write_csv_results
-    from gpuaudiobench_tpu.harness.statistics import calculate_statistics
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.harness.base import BenchmarkResult
+    from gpuaudiobench_jax.harness.output import write_csv_results
+    from gpuaudiobench_jax.harness.statistics import calculate_statistics
 
     path = str(tmp_path / "r.csv")
     res = BenchmarkResult(benchmark_name="gain", buffer_size=512,

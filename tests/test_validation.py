@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from gpuaudiobench_tpu.harness.validation import (
+from gpuaudiobench_jax.harness.validation import (
     ValidationStatus,
     compare_abs,
     compare_complex,

@@ -2,7 +2,7 @@
 
 ``python tools/<name>.py`` puts tools/ (not the repo root) at
 sys.path[0]; importing this module (which lives next to every tool)
-prepends the repo root so ``gpuaudiobench_tpu`` resolves from any cwd.
+prepends the repo root so ``gpuaudiobench_jax`` resolves from any cwd.
 """
 
 import os

@@ -1,11 +1,10 @@
 """Derive the CUDA-schema CSV artifact from the suite JSON artifact.
 
-One measurement, two serializations: tools/regen_artifacts.sh runs the
-suite ONCE (JSON), then derives the CSV from that JSON -- so the two
-shipped artifacts can never disagree (round 2 shipped a CSV and a JSON
-from different runs, ~10-25% apart on some rows; VERDICT r2 weak #1 /
-next #2). Columns reproduce harness/output.py's CSV writer: the
-globals.cu:69-122 schema plus the saturated extension columns.
+One measurement, two serializations: run the suite once with --json,
+then derive the CSV from that JSON, so the two can never disagree.
+Columns reproduce harness/output.py's CSV writer: the
+globals.cu:69-122 schema plus the saturated extension columns and the
+device the row ran on.
 
 Usage: python tools/json_to_csv.py RESULTS.json RESULTS.csv
 """
@@ -19,7 +18,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from gpuaudiobench_tpu.harness.output import (  # noqa: E402
+from gpuaudiobench_jax.harness.output import (  # noqa: E402
     csv_from_json_results,
 )
 

@@ -1,8 +1,8 @@
 """Merge capacity-search JSON records into one markdown table.
 
-tools/chip_queue.sh runs tools/capacity.py several times (modal at two
-buffer sizes, Conv1D, and a multi-benchmark table), each writing its
-own JSON; archiving wants one table. Records with different deadlines
+A campaign runs tools/capacity.py several times (modal at two buffer
+sizes, Conv1D, and a multi-benchmark table), each writing its own
+JSON; archiving wants one table. Records with different deadlines
 (buffer sizes) are grouped into separate tables in one document.
 
 Usage: python tools/merge_capacity.py out.md in1.json [in2.json ...]

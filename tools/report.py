@@ -1,10 +1,10 @@
-"""Static HTML report generator: the TPU build's analog of the WebGPU
+"""Static HTML report generator: this suite's analog of the WebGPU
 UI (webgpu/index.html + js/app.js) -- latency histograms, suite
 comparison table, deadline markers, hardware info -- as a dependency-free
 single-file dashboard rendered from the harness's JSON results.
 
 Usage:
-  python -m gpuaudiobench_tpu.cli --benchmarkFilter /.*/ --json \
+  python -m gpuaudiobench_jax.cli --benchmarkFilter /.*/ --json \
       --outputfile results.json
   python tools/report.py results.json -o report.html
 """
@@ -60,7 +60,7 @@ def _histogram_svg(latencies: List[float], threshold_ms: float,
 
 def _load_published():
     """PUBLISHED/NOTES tables via the shared loader."""
-    from gpuaudiobench_tpu.utils.published import load_compare_module
+    from gpuaudiobench_jax.utils.published import load_compare_module
 
     mod = load_compare_module()
     if mod is None:
@@ -102,13 +102,13 @@ def _baseline_section(results: List[dict]) -> str:
         "<table border='0' cellspacing='0' cellpadding='6' "
         "style='border-collapse:collapse;font-size:13px'>"
         "<tr style='background:#eef2f6'><th>benchmark</th>"
-        "<th>RTX 4070 p50</th><th>M2 Pro p50</th><th>TPU v5e ms</th>"
+        "<th>RTX 4070 p50</th><th>M2 Pro p50</th><th>this run ms</th>"
         "<th>vs PC</th><th>note</th></tr>"
         + "".join(rows) + "</table>"
     )
 
 
-def generate_report(results: List[dict], title: str = "tpuaudiobench results") -> str:
+def generate_report(results: List[dict], title: str = "audiobench results") -> str:
     rows = []
     cards = []
     for r in results:
@@ -143,11 +143,6 @@ def generate_report(results: List[dict], title: str = "tpuaudiobench results") -
             )
         else:
             peak_cell = "&mdash;"
-        proj_row = md_all.get("projection")
-        proj_cell = (
-            f"{proj_row['projected_colocated_ms']:.3f}" if proj_row
-            else "&mdash;"
-        )
         rows.append(
             "<tr>"
             f"<td>{name}</td>"
@@ -157,7 +152,6 @@ def generate_report(results: List[dict], title: str = "tpuaudiobench results") -
             f"<td>{dev_cell}</td>"
             f"<td>{sat_cell}</td>"
             f"<td>{peak_cell}</td>"
-            f"<td>{proj_cell}</td>"
             f"<td>{deadline.get('threshold_ms', 0):.3f}</td>"
             f"<td>{badge}</td>"
             f"<td>{vbadge}</td>"
@@ -219,13 +213,6 @@ def generate_report(results: List[dict], title: str = "tpuaudiobench results") -
                    else f"{rl['bound']}-bound")
                 + f" [peaks: {html.escape(rl.get('peak_source', 'spec-estimate'))}]"
             )
-        proj = meta.pop("projection", None)
-        if proj:
-            bits.append(
-                f"co-located projection {proj['projected_colocated_ms']:.3f} ms "
-                f"(device {proj['device_ms']:.4f} + transfers "
-                f"{proj['transfer_ms']:.3f} @ PCIe-class)"
-            )
         dev_str = " &middot; ".join(bits)
         cards.append(
             f"<h3>{name}</h3>{hist}"
@@ -238,7 +225,7 @@ def generate_report(results: List[dict], title: str = "tpuaudiobench results") -
         "<tr style='background:#eef2f6'>"
         "<th>benchmark</th><th>p50</th><th>p95</th><th>p99</th>"
         "<th>device ms</th><th>saturated ms/blk</th>"
-        "<th>% of peak</th><th>projected ms</th><th>deadline</th>"
+        "<th>% of peak</th><th>deadline</th>"
         "<th>status</th><th>validation</th><th>GB/s</th></tr>"
         + "".join(rows) + "</table>"
     )
@@ -257,8 +244,8 @@ def generate_report(results: List[dict], title: str = "tpuaudiobench results") -
         "td:first-child,th:first-child{text-align:left}</style></head><body>"
         f"<h1>{html.escape(title)}</h1>" + hw +
         "<p>Round-trip latencies in ms per full "
-        "host&rarr;HBM&rarr;kernel&rarr;host iteration; device ms = "
-        "on-device module time (xplane); saturated = amortized wall/depth "
+        "host&rarr;device&rarr;kernel&rarr;host iteration; device ms = "
+        "kernel time from the profiler trace; saturated = amortized wall/depth "
         "ms/block with the pipeline kept full (see each card for the "
         "depth-differenced marginal where measured); deadline = "
         "1000&middot;bufferSize/fs.</p>"
@@ -271,7 +258,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("results", help="JSON results file (single object or array)")
     ap.add_argument("-o", "--output", default="report.html")
-    ap.add_argument("--title", default="tpuaudiobench results")
+    ap.add_argument("--title", default="audiobench results")
     args = ap.parse_args(argv)
     with open(args.results) as f:
         data = json.load(f)

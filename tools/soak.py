@@ -20,8 +20,8 @@ Two integrity signals per second, both outside the timed region:
 * **state RMS** -- RMS over the EVOLVING floating-point leaves of the
   CARRY, computed on-device (one scalar D2H). Leaves still
   bit-identical to their initial value (input blocks, sample pools,
-  IR spectra riding the carry as aliased runtime arguments -- the
-  remote-compile-413 lesson) are excluded per measurement so a large
+  IR spectra riding the carry as aliased runtime arguments, so they
+  stay out of the compiled module) are excluded per measurement so a large
   carried constant cannot dilute a genuine recurrence drift; if no
   leaf has evolved, the full-carry RMS is reported instead. This is
   the signal that actually detects a diverging recurrence or state
@@ -37,7 +37,7 @@ Usage: python tools/soak.py [seconds] [output.md] [benchmark] [tracks]
            [--set FIELD=VALUE ...]   # BenchConfig overrides
                             [reexcite_every] [--checkpoint PATH]
                             [--resume] [--renorm]
-       (defaults: 60s, docs/RESULTS_r2_soak.md, ModalFilterBank, 1024,
+       (defaults: 60s, soak.md, ModalFilterBank, 1024,
         0 = never re-excite)
 
 ``--checkpoint PATH`` saves the streaming carry every 30 soak seconds
@@ -59,7 +59,7 @@ import time
 def stream_state_rms(c, c0):
     """RMS over the carry's EVOLVING float leaves only. Constants
     ride the carry so they stay runtime arguments instead of
-    remote-compile payload (the 413 lesson, models/iir.py), and an
+    compiled-module constants (models/iir.py), and an
     input block can outweigh the real state by 100x+ (IIR: T*S input
     vs T*2 z's) -- averaging it in would dilute a genuine drift below
     visibility. A leaf still bit-identical to its initial value is
@@ -126,7 +126,7 @@ def main() -> int:
         print("--resume requires --checkpoint PATH")
         return 1
     seconds = int(argv[0]) if len(argv) > 0 else 60
-    out_path = argv[1] if len(argv) > 1 else "docs/RESULTS_r3_soak.md"
+    out_path = argv[1] if len(argv) > 1 else "soak.md"
     name = argv[2] if len(argv) > 2 else "ModalFilterBank"
     tracks = int(argv[3]) if len(argv) > 3 else 1024
     reexcite_every = int(argv[4]) if len(argv) > 4 else 0
@@ -143,9 +143,9 @@ def main() -> int:
     import jax
     import numpy as np
 
-    from gpuaudiobench_tpu.config import BenchConfig
-    from gpuaudiobench_tpu.registry import create_benchmark
-    from gpuaudiobench_tpu.utils.device import enable_compilation_cache
+    from gpuaudiobench_jax.config import BenchConfig
+    from gpuaudiobench_jax.registry import create_benchmark
+    from gpuaudiobench_jax.utils.device import enable_compilation_cache
 
     enable_compilation_cache()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -178,7 +178,7 @@ def main() -> int:
         return 1
     carry0 = carry  # initial state, kept for re-excitation
     if resume:
-        from gpuaudiobench_tpu.harness.checkpoint import load_stream_state
+        from gpuaudiobench_jax.harness.checkpoint import load_stream_state
 
         carry, hdr = load_stream_state(ckpt_path, carry, benchmark=name)
         print(f"resumed carry from {ckpt_path} "
@@ -194,7 +194,7 @@ def main() -> int:
                 return a
             # Pass-through constants (mode tables, IR spectra, sample
             # pools) ride the carry unchanged so they stay runtime
-            # arguments instead of remote-compile payload; re-exciting
+            # arguments instead of module constants; re-exciting
             # them would corrupt the PROGRAM, not the state. A leaf
             # still bit-identical to its initial value is such a
             # constant (or un-evolved state, for which +0.5*initial is
@@ -226,7 +226,7 @@ def main() -> int:
         srms = float(state_rms(carry, carry0))  # outside timed region
         rows.append((sec, wall, per_block, rms, srms))
         if ckpt_path and (sec % 30 == 29 or sec == seconds - 1):
-            from gpuaudiobench_tpu.harness.checkpoint import (
+            from gpuaudiobench_jax.harness.checkpoint import (
                 save_stream_state,
             )
 
@@ -249,8 +249,11 @@ def main() -> int:
     win = max(1, min(10, seconds // 4))
     drift_pct = (np.median(per_block[-win:])
                  / np.median(per_block[:win]) - 1) * 100
+    from gpuaudiobench_jax.utils import device as dev
+
     lines = [
-        f"# Sustained-load soak (TPU v5e): {name} "
+        f"# Sustained-load soak ({dev.default_device().device_kind}; "
+        f"{dev.card_info() or 'no nvidia-smi'}): {name} "
         f"({tracks} tracks), continuous",
         "",
         f"{seconds} seconds of audio processed block-by-block with "
